@@ -1,17 +1,18 @@
-"""drtvam_tpu — a TPU-native differentiable tomographic renderer for
+"""drtvam_tpu — a differentiable tomographic renderer in JAX for
 volumetric additive manufacturing (TVAM) pattern optimization.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of Dr.TVAM
-(reference: /root/reference, "Inverse Rendering for Tomographic Volumetric
-Additive Manufacturing", SIGGRAPH Asia 2024). The compute path is pure
-JAX (jit/vmap/lax + Pallas kernels); scenes are pytrees; gradients are
-hand-derived adjoints registered through jax.custom_vjp.
+("Inverse Rendering for Tomographic Volumetric Additive Manufacturing",
+SIGGRAPH Asia 2024). The compute path is pure JAX (jit/vmap/lax, plus
+Pallas kernels through Triton for the GPU's backprojection); scenes are
+pytrees; gradients are hand-derived adjoints registered through
+jax.custom_vjp.
 
-Layer map (TPU-first, not a port):
+Layer map (a rebuild, not a port):
   core/     — transforms, warp sampling, counter-based RNG
   ops/      — intersection kernels, fresnel, DDA dose estimators, the
               wavefront path-tracing march (+ custom_vjp adjoint), fast
-              gather-based ballistic engine
+              gather-based ballistic engine and its GPU kernels
   models/   — domain model: projectors, motion, vials, sensors, scene
   opt/      — losses, L-BFGS (incl. linear variant), optimize() driver
   parallel/ — device-mesh sharding of the ray/angle space, psum dose

@@ -6,7 +6,7 @@ integrators/common.py:41-68). Requirements:
   * stateless & replayable: the adjoint pass re-traces the exact primal
     paths by re-seeding with the same seed (reference volume.py:116), so
     draw k of lane i must be a pure function of (seed, i, k);
-  * cheap inside lax loops on TPU (no threefry tree — a handful of int ops).
+  * cheap inside lax loops (no threefry tree — a handful of int ops).
 
 We use the PCG3D hash (Jarzynski & Olano, "Hash Functions for GPU
 Rendering", JCGT 2020) over the triple (seed, lane, counter). Each call

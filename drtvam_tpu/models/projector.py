@@ -69,8 +69,7 @@ class ProjectorStatic:
     # sparse pattern store is the dense identity map (no culling/crop):
     # ray generation then derives pixel ids arithmetically instead of
     # gathering active_pixels — at 64M lanes that random-access gather
-    # is one of the hottest ops in the whole wavefront (TPU profile:
-    # ~25 ms per 1M-lane chunk)
+    # is a large share of the wavefront's work
     identity: bool = False
 
 

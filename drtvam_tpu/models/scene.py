@@ -200,8 +200,7 @@ class Scene:
         )
         # host numpy throughout: these arrays ride into jitted renders
         # as ARGUMENTS (one transfer at dispatch); eager device arrays
-        # here would cost a host<->device round trip per field, which
-        # over a network-attached TPU dominates scene construction
+        # here would cost a host<->device round trip per field
         arr = {
             "surf_params": np.asarray(params, np.float32),
             "surf_eta": np.asarray(etas, np.float32),

@@ -1,4 +1,4 @@
-"""Ballistic dose backprojection: per-angle interpolation matmuls.
+"""Ballistic dose backprojection: per-angle two-tap interpolation.
 
 Consumes the per-angle 2D transport fields (ops/transport2d.py) and the
 z-resampled pattern stack Pz (A, Zf, U):
@@ -8,35 +8,62 @@ z-resampled pattern stack Pz (A, Zf, U):
 
 where B_a(U, YX) is the sparse-2 linear-interpolation matrix defined by
 (W_a, u_map_a): B[i, j] = W_j * max(0, 1 - |u_j - i|). Two
-implementations with identical math:
+implementations with the same math, both summing in f32:
 
-  * `xla`   — angle-scan with take-based gathers; runs anywhere,
-              reference for tests;
-  * `pallas` — TPU kernel: the B tile is built on the fly in VMEM from
-              the field tile (VPU iota compare) and contracted on the
-              MXU; the dose/pattern-grad tile stays resident across the
-              innermost grid dimension. No scatters anywhere — this
-              replaces the reference's per-voxel atomic scatter_reduce
-              (film.py:41) with dense matmuls.
+  * `xla`    — angle scan with take-based gathers and a scatter-add
+               adjoint; runs anywhere and is the reference for tests;
+  * `triton` — GPU kernels (Pallas through Triton). The forward keeps
+               a (cells x z) dose tile in registers and loops over every
+               angle inside the block, gathering the two taps of each
+               cell from the pattern stack. The adjoint gathers, for
+               each pattern column, the dose cotangent of the cells that
+               interpolate from it, through a per-angle column->cells
+               table built once per geometry: no atomics, so its sums
+               are the same on every run.
 
-The forward/adjoint pair is registered as a custom_vjp so the dose is
-differentiable w.r.t. the pattern stack; everything upstream (sparse
-active_data -> dense patterns -> Sz resample) is plain differentiable
-jnp, giving pattern gradients end to end.
+`prepare(impl, W, Umap, U)` turns the fields into the operands an
+implementation reads (once per engine); `backproject` is the
+differentiable entry, a custom_vjp whose backward is `adjoint`.
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
+
+from .render import _zero_ct
+
+IMPLS = ("xla", "triton")
+
+
+def default_impl():
+    """The implementation for the platform JAX runs on."""
+    return "triton" if jax.devices()[0].platform == "gpu" else "xla"
+
+
+def _check(impl):
+    if impl not in IMPLS:
+        raise ValueError(f"unknown backprojection impl {impl!r} "
+                         f"(have: {', '.join(IMPLS)})")
 
 
 def _round_up(x, m):
     return -(-x // m) * m
+
+
+def _taps(W, Umap, U):
+    """(A, n) fields -> per-cell taps: the left column i0, clipped to
+    [-1, U-1], and the weights of columns i0 and i0+1 (zero where the
+    column is off the DMD or the cell is empty)."""
+    i0 = jnp.floor(Umap).astype(jnp.int32)
+    f = Umap - i0
+    w0 = W * (1.0 - f) * ((i0 >= 0) & (i0 < U))
+    w1 = W * f * ((i0 + 1 >= 0) & (i0 + 1 < U))
+    return jnp.clip(i0, -1, U - 1), w0, w1
 
 
 # --------------------------------------------------------------------------
@@ -46,14 +73,9 @@ def _round_up(x, m):
 def _fwd_xla(Pz, W, Umap):
     A, Zf, U = Pz.shape
     _, Y, X = W.shape
-    Wf = W.reshape(A, Y * X)
-    Uf = Umap.reshape(A, Y * X)
-    i0 = jnp.floor(Uf).astype(jnp.int32)
-    f = Uf - i0
-    w0 = Wf * (1.0 - f) * ((i0 >= 0) & (i0 < U))
-    w1 = Wf * f * ((i0 + 1 >= 0) & (i0 + 1 < U))
-    i0c = jnp.clip(i0, 0, U - 1)
-    i1c = jnp.clip(i0 + 1, 0, U - 1)
+    i0, w0, w1 = _taps(W.reshape(A, Y * X), Umap.reshape(A, Y * X), U)
+    i0c = jnp.maximum(i0, 0)
+    i1c = jnp.minimum(i0 + 1, U - 1)
 
     def body(dose, inp):
         Pa, i0a, i1a, w0a, w1a = inp
@@ -69,14 +91,9 @@ def _fwd_xla(Pz, W, Umap):
 def _bwd_xla(dL, W, Umap, U):
     A, Y, X = W.shape
     Zf = dL.shape[0]
-    Wf = W.reshape(A, Y * X)
-    Uf = Umap.reshape(A, Y * X)
-    i0 = jnp.floor(Uf).astype(jnp.int32)
-    f = Uf - i0
-    w0 = Wf * (1.0 - f) * ((i0 >= 0) & (i0 < U))
-    w1 = Wf * f * ((i0 + 1 >= 0) & (i0 + 1 < U))
-    i0c = jnp.clip(i0, 0, U - 1)
-    i1c = jnp.clip(i0 + 1, 0, U - 1)
+    i0, w0, w1 = _taps(W.reshape(A, Y * X), Umap.reshape(A, Y * X), U)
+    i0c = jnp.maximum(i0, 0)
+    i1c = jnp.minimum(i0 + 1, U - 1)
 
     def body(_, inp):
         i0a, i1a, w0a, w1a = inp
@@ -90,429 +107,236 @@ def _bwd_xla(dL, W, Umap, U):
 
 
 # --------------------------------------------------------------------------
-# Pallas TPU kernels
-
-# YX columns per tile. Both kernels are HBM-bound, not MXU-bound: the
-# forward re-reads each angle's (Zp, Upad) pattern block once per YX
-# tile, the backward re-reads each (Zp, TILE) dL block once per angle —
-# total traffic scales with n_tiles x A, so bigger tiles directly cut
-# bandwidth. 4096 keeps the on-the-fly B tile (Upad x TILE f32 = 8 MB
-# at Upad=512) inside VMEM.
-TILE = 4096
-TILE_BWD = 4096
-
-
-def _make_fwd_kernel(bf16):
-    def _fwd_kernel(P_ref, F_ref, out_ref):
-        a = pl.program_id(1)
-
-        @pl.when(a == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
-
-        Upad, T = P_ref.shape[2], F_ref.shape[2]
-        acc = out_ref[:]
-        for k in range(P_ref.shape[0]):
-            W = F_ref[k, 0, :].reshape(1, T)
-            u = F_ref[k, 1, :].reshape(1, T)
-            rows = jax.lax.broadcasted_iota(jnp.int32, (Upad, T), 0)
-            rows = rows.astype(jnp.float32)
-            B = W * jnp.maximum(0.0, 1.0 - jnp.abs(u - rows))
-            P = P_ref[k]
-            if bf16:
-                # P arrives as bf16 IN HBM (halves the dominant read
-                # stream); B is built in f32 on the VPU and rounded
-                # once. f32 accumulation. The bf16 rounding of B
-                # (~2^-9 on interpolation weights) dominates the error.
-                acc = acc + jnp.dot(P, B.astype(jnp.bfloat16),
-                                    preferred_element_type=jnp.float32)
-            else:
-                acc = acc + jnp.dot(P, B,
-                                    preferred_element_type=jnp.float32)
-        out_ref[:] = acc
-
-    return _fwd_kernel
-
-
-def _make_bwd_kernel(bf16):
-    def _bwd_kernel(dL_ref, F_ref, out_ref):
-        """out (Zp, Upad) += dL(Zp, T) @ B_a^T(T, Upad), one angle per
-        outer grid step, accumulating over the inner YX-tile dimension.
-        The on-the-fly-built interpolation tile sits on the RHS of the
-        matmul exactly like the forward kernel -- with it on the LHS,
-        Mosaic spends tens of minutes in relayout during compilation."""
-        t = pl.program_id(1)
-
-        @pl.when(t == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
-
-        T = F_ref.shape[2]
-        Upad = out_ref.shape[1]
-        W = F_ref[0, 0, :].reshape(T, 1)
-        u = F_ref[0, 1, :].reshape(T, 1)
-        cols = jax.lax.broadcasted_iota(jnp.int32, (T, Upad), 1)
-        Bt = W * jnp.maximum(0.0,
-                             1.0 - jnp.abs(u - cols.astype(jnp.float32)))
-        dL = dL_ref[:]
-        if bf16:
-            # dL arrives as bf16 in HBM — it is re-read once per angle,
-            # the dominant stream of the backward pass
-            out_ref[:] += jnp.dot(dL, Bt.astype(jnp.bfloat16),
-                                  preferred_element_type=jnp.float32)
-        else:
-            out_ref[:] += jnp.dot(dL, Bt,
-                                  preferred_element_type=jnp.float32)
-
-    return _bwd_kernel
-
-
-def _pack_fields(W, Umap, U, tile):
-    """(A, Y, X) pair -> (A, 2, YXpad) with empty cells pushed outside
-    the interpolation support so they contribute nothing."""
-    A, Y, X = W.shape
-    YX = Y * X
-    YXp = _round_up(YX, tile)
-    Wf = W.reshape(A, YX)
-    Uf = jnp.where(Wf > 0, Umap.reshape(A, YX), jnp.float32(-2.0))
-    F = jnp.stack([Wf, Uf], axis=1)
-    if YXp != YX:
-        F = jnp.pad(F, ((0, 0), (0, 0), (0, YXp - YX)),
-                    constant_values=0.0)
-        # padded cells: u=-2 keeps B columns identically zero
-        F = F.at[:, 1, YX:].set(-2.0)
-    return F
-
-
-def _fwd_pallas(Pz, W, Umap, bf16=False):
-    A, Zf, U = Pz.shape
-    _, Y, X = W.shape
-    YX = Y * X
-    Upad = _round_up(U, 128)
-    Zp = _round_up(Zf, 16 if bf16 else 8)
-    Pp = jnp.pad(Pz, ((0, 0), (0, Zp - Zf), (0, Upad - U)))
-    if bf16:
-        Pp = Pp.astype(jnp.bfloat16)
-    F = _pack_fields(W, Umap, U, TILE)
-    YXp = F.shape[2]
-    n_tiles = YXp // TILE
-
-    out = pl.pallas_call(
-        _make_fwd_kernel(bf16),
-        grid=(n_tiles, A),
-        in_specs=[
-            pl.BlockSpec((1, Zp, Upad), lambda t, a: (a, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 2, TILE), lambda t, a: (a, 0, t),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Zp, TILE), lambda t, a: (0, t),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((Zp, YXp), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_tiles * A * Zp * Upad * TILE,
-            bytes_accessed=n_tiles * A * (Zp * Upad * 4 + 2 * TILE * 4)
-            + Zp * YXp * 4,
-            transcendentals=0),
-    )(Pp, F)
-    return out[:Zf, :YX]
-
-
-def _bwd_pallas(dL, W, Umap, U, bf16=False):
-    A, Y, X = W.shape
-    Zf = dL.shape[0]
-    YX = Y * X
-    Upad = _round_up(U, 128)
-    Zp = _round_up(Zf, 16 if bf16 else 8)
-    F = _pack_fields(W, Umap, U, TILE_BWD)
-    YXp = F.shape[2]
-    n_tiles = YXp // TILE_BWD
-    dLp = jnp.pad(dL.reshape(Zf, YX), ((0, Zp - Zf), (0, YXp - YX)))
-    if bf16:
-        dLp = dLp.astype(jnp.bfloat16)
-
-    out = pl.pallas_call(
-        _make_bwd_kernel(bf16),
-        grid=(A, n_tiles),
-        in_specs=[
-            pl.BlockSpec((Zp, TILE_BWD), lambda a, t: (0, t),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 2, TILE_BWD), lambda a, t: (a, 0, t),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Zp, Upad), lambda a, t: (a, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((A * Zp, Upad), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_tiles * A * Zp * Upad * TILE_BWD,
-            bytes_accessed=A * n_tiles *
-            (Zp * TILE_BWD * 4 + 2 * TILE_BWD * 4) + A * Zp * Upad * 4,
-            transcendentals=0),
-    )(dLp, F)
-    return out.reshape(A, Zp, Upad)[:, :Zf, :U]
-
-
-# --------------------------------------------------------------------------
-# banded kernels: 2D-block dose tiles -> narrow DMD-column bands
+# Triton kernels (GPU)
 #
-# A flattened-raster YX tile spans the full film width, so its rays can
-# touch every DMD column and B must carry all Upad rows. Re-tiling the
-# dose into BY x BX spatial blocks bounds each tile's u-span by the
-# block's projected extent (<= sqrt(BY^2+BX^2) * U/X DMD pixels): only a
-# BANDW-row band of B is nonzero. The kernels then move and contract
-# BANDW rows instead of Upad — at the bench geometry (U=400, film 256,
-# 32x64 blocks) that halves FLOPs, B-construction work, and the
-# dominant HBM streams. Band starts ride in as a scalar-prefetch array;
-# the forward DMAs just the band of each angle's pattern block out of
-# HBM. Eligibility (film divisible into blocks, actual u-span fits the
-# band) is checked by the caller (ops/ballistic.py) once per scene.
+# Cells are visited in TY x TX spatial tiles: a tile's rays land on a
+# narrow band of DMD columns, so the two gathers per cell and angle hit
+# the same few cache lines. The pattern stack and the dose cotangent are
+# laid out z-minor ((A, U, Zp) and (cells, Zp)), so each gathered row is
+# bz contiguous floats.
 
-BY, BX = 32, 64          # dose block = one YX tile (BY*BX == TILE_B)
-TILE_B = BY * BX
-BANDW = 256              # band rows; u0 quantized to 128 for alignment
+TY, TX = 8, 16           # cells per forward block
+TILE = TY * TX
+BZ = 64                  # most dose rows per block
+BU = 32                  # pattern columns per adjoint block
+NUM_WARPS = 4
 
 
-def block_permute(x, Y, X):
-    """(..., Y, X) raster -> (..., n_tiles, BY*BX) block-major."""
-    lead = x.shape[:-2]
-    x = x.reshape(lead + (Y // BY, BY, X // BX, BX))
-    x = jnp.moveaxis(x, -2, -3)
-    return x.reshape(lead + ((Y // BY) * (X // BX), BY * BX))
+def _bz(Zf):
+    return min(BZ, pl.next_power_of_2(Zf))
 
 
-def block_unpermute(x, Y, X):
-    """(..., n_tiles * BY*BX) block-major -> (..., Y, X) raster."""
-    lead = x.shape[:-1]
-    x = x.reshape(lead + (Y // BY, X // BX, BY, BX))
-    x = jnp.moveaxis(x, -2, -3)
-    return x.reshape(lead + (Y, X))
+def _tile_major(x):
+    """(L, Y, X) -> (L, Yp*Xp), TY x TX tiles in row-major tile order,
+    zero-padded to whole tiles."""
+    L, Y, X = x.shape
+    Yp, Xp = _round_up(Y, TY), _round_up(X, TX)
+    x = jnp.pad(x, ((0, 0), (0, Yp - Y), (0, Xp - X)))
+    x = x.reshape(L, Yp // TY, TY, Xp // TX, TX).transpose(0, 1, 3, 2, 4)
+    return x.reshape(L, Yp * Xp)
 
 
-def banded_eligible(W_shape, U):
-    _, Y, X = W_shape
-    return (Y % BY == 0 and X % BX == 0 and _round_up(U, 128) >= BANDW)
+def _raster(x, Y, X):
+    """Inverse of _tile_major: (L, Yp*Xp) -> (L, Y*X)."""
+    L = x.shape[0]
+    Yp, Xp = _round_up(Y, TY), _round_up(X, TX)
+    x = x.reshape(L, Yp // TY, Xp // TX, TY, TX).transpose(0, 1, 3, 2, 4)
+    return x.reshape(L, Yp, Xp)[:, :Y, :X].reshape(L, Y * X)
 
 
-def _pack_fields_banded(W, Umap, U):
-    """Block-major (A, 2, n_tiles*TILE_B) fields + (A, n_tiles) int32
-    band starts (quantized to 128)."""
+@partial(jax.tree_util.register_dataclass,
+         data_fields=["i0", "w0", "w1", "cells", "cw", "kmax"],
+         meta_fields=["Y", "X"])
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """Operands of the `triton` kernels, every array leading with A.
+
+    i0, w0, w1: (A, Yp*Xp) taps of each cell, tile-major.
+    cells, cw: (A, K, Up) adjoint table: the k-th cell (tile-major
+        index) interpolating from column u, and its weight; zero
+        weights pad each column to K entries.
+    kmax: (A, Up // BU) entries the adjoint block of each BU columns
+        has to visit.
+    """
+    i0: jax.Array
+    w0: jax.Array
+    w1: jax.Array
+    cells: jax.Array
+    cw: jax.Array
+    kmax: jax.Array
+    Y: int
+    X: int
+
+
+@partial(jax.jit, static_argnums=(3,))
+def _sorted_taps(i0, w0, w1, U):
+    """Both taps of every cell, sorted by column per angle (used taps
+    first, in cell order), and each column's entry count."""
+    A, n = i0.shape
+    Up = _round_up(U, BU)
+    col = jnp.concatenate([jnp.maximum(i0, 0), jnp.minimum(i0 + 1, U - 1)],
+                          axis=1)
+    w = jnp.concatenate([w0, w1], axis=1)
+    col = jnp.where(w != 0, col, Up)
+    order = jnp.argsort(col, axis=1, stable=True)
+    col = jnp.take_along_axis(col, order, axis=1)
+    w = jnp.take_along_axis(w, order, axis=1)
+    count = jax.vmap(lambda c: jnp.bincount(c, length=Up + 1))(col)
+    return col, w, (order % n).astype(jnp.int32), count[:, :Up]
+
+
+@partial(jax.jit, static_argnums=(4,))
+def _fill_table(col, w, cell, count, K):
+    A, m = col.shape
+    Up = count.shape[1]
+    start = jnp.cumsum(count, axis=1) - count
+    rank = jnp.arange(m)[None] - jnp.take_along_axis(
+        start, jnp.minimum(col, Up - 1), axis=1)
+    a = jnp.broadcast_to(jnp.arange(A)[:, None], (A, m))
+    # unused taps carry col == Up, out of bounds: dropped
+    cells = jnp.zeros((A, K, Up), jnp.int32).at[a, rank, col].set(
+        cell, mode="drop")
+    cw = jnp.zeros((A, K, Up), jnp.float32).at[a, rank, col].set(
+        w, mode="drop")
+    kmax = count.reshape(A, Up // BU, BU).max(axis=2)
+    return cells, cw, kmax
+
+
+def _tile_geometry(W, Umap, U):
     A, Y, X = W.shape
-    Upad = _round_up(U, 128)
-    Wb = block_permute(W, Y, X)                      # (A, T, TILE_B)
-    Ub = block_permute(Umap, Y, X)
-    valid = Wb > 0
-    Ub = jnp.where(valid, Ub, jnp.float32(-2.0))
-    min_u = jnp.min(jnp.where(valid, Ub, jnp.float32(jnp.inf)), axis=-1)
-    u0 = jnp.floor((min_u - 1.0) / 128.0) * 128.0
-    u0 = jnp.clip(jnp.where(jnp.isfinite(u0), u0, 0.0), 0,
-                  Upad - BANDW).astype(jnp.int32)
-    n_tiles = Wb.shape[1]
-    F = jnp.stack([Wb.reshape(A, n_tiles * TILE_B),
-                   Ub.reshape(A, n_tiles * TILE_B)], axis=1)
-    return F, u0
+    i0, w0, w1 = _taps(_tile_major(W), _tile_major(Umap), U)
+    col, w, cell, count = _sorted_taps(i0, w0, w1, U)
+    K = max(int(count.max()), 1)   # one sync per geometry: table depth
+    cells, cw, kmax = _fill_table(col, w, cell, count, K)
+    return TileGeometry(i0, w0, w1, cells, cw, kmax, Y, X)
 
 
-def band_span_ok(W, Umap, U):
-    """True iff every (angle, tile) band actually covers its u-range —
-    the one data-dependent eligibility condition (refraction stretches
-    the projected fan). One scalar; sync it once per scene."""
-    A, Y, X = W.shape
-    Upad = _round_up(U, 128)
-    Wb = block_permute(W, Y, X)
-    Ub = block_permute(Umap, Y, X)
-    valid = Wb > 0
-    Ubv = jnp.where(valid, Ub, jnp.float32(-2.0))
-    min_u = jnp.min(jnp.where(valid, Ubv, jnp.float32(jnp.inf)), -1)
-    max_u = jnp.max(jnp.where(valid, Ubv, -jnp.float32(jnp.inf)), -1)
-    u0 = jnp.floor((min_u - 1.0) / 128.0) * 128.0
-    u0 = jnp.clip(jnp.where(jnp.isfinite(u0), u0, 0.0), 0, Upad - BANDW)
-    any_valid = jnp.any(valid, -1)
-    ok = ~any_valid | (max_u + 1.0 <= u0 + BANDW - 1)
-    return jnp.all(ok)
+def _fwd_kernel(pz_ref, i0_ref, w0_ref, w1_ref, out_ref):
+    """out (TILE, bz) = sum over all angles of the two-tap gathers."""
+    A, U = pz_ref.shape[0], pz_ref.shape[1]
+    bz = out_ref.shape[1]
+    zs = pl.ds(pl.program_id(1) * bz, bz)
+
+    def body(a, acc):
+        i0 = i0_ref[a, :]
+        p0 = pz_ref[a, jnp.maximum(i0, 0), zs]
+        p1 = pz_ref[a, jnp.minimum(i0 + 1, U - 1), zs]
+        return acc + (p0 * w0_ref[a, :][:, None] +
+                      p1 * w1_ref[a, :][:, None])
+
+    out_ref[...] = jax.lax.fori_loop(
+        0, A, body, jnp.zeros(out_ref.shape, jnp.float32))
 
 
-def _make_fwd_banded_kernel(bf16):
-    def kernel(u0_ref, P_ref, F_ref, out_ref, p_buf, sem):
-        t = pl.program_id(0)
-        a = pl.program_id(1)
+def _bwd_kernel(kmax_ref, cells_ref, cw_ref, dl_ref, out_ref):
+    """out (BU, bz) of one angle = sum_k cw[k, u] * dL[cells[k, u], z]."""
+    bz = out_ref.shape[1]
+    zs = pl.ds(pl.program_id(2) * bz, bz)
 
-        @pl.when(a == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
+    def body(k, acc):
+        return acc + dl_ref[cells_ref[k, :], zs] * cw_ref[k, :][:, None]
 
-        u0 = pl.multiple_of(u0_ref[a, t], 128)
-        dma = pltpu.make_async_copy(
-            P_ref.at[a, :, pl.ds(u0, BANDW)], p_buf, sem)
-        dma.start()
-        T = F_ref.shape[2]
-        Wv = F_ref[0, 0, :].reshape(1, T)
-        uv = F_ref[0, 1, :].reshape(1, T) - u0.astype(jnp.float32)
-        rows = jax.lax.broadcasted_iota(jnp.int32, (BANDW, T), 0)
-        B = Wv * jnp.maximum(0.0, 1.0 - jnp.abs(uv - rows.astype(
-            jnp.float32)))
-        if bf16:
-            B = B.astype(jnp.bfloat16)
-        dma.wait()
-        out_ref[:] += jnp.dot(p_buf[:], B,
-                              preferred_element_type=jnp.float32)
-
-    return kernel
+    n_k = kmax_ref[pl.program_id(0), pl.program_id(1)]
+    out_ref[...] = jax.lax.fori_loop(
+        0, n_k, body, jnp.zeros(out_ref.shape, jnp.float32))
 
 
-def _fwd_banded(Pz, W, Umap, bf16=False):
+def _fwd_triton(Pz, geo, interpret=False):
     A, Zf, U = Pz.shape
-    _, Y, X = W.shape
-    YX = Y * X
-    Upad = _round_up(U, 128)
-    Zp = _round_up(Zf, 16 if bf16 else 8)
-    Pp = jnp.pad(Pz, ((0, 0), (0, Zp - Zf), (0, Upad - U)))
-    if bf16:
-        Pp = Pp.astype(jnp.bfloat16)
-    F, U0 = _pack_fields_banded(W, Umap, U)
-    n_tiles = F.shape[2] // TILE_B
-
+    n = geo.i0.shape[1]
+    bz = _bz(Zf)
+    Zp = _round_up(Zf, bz)
+    PzT = jnp.pad(Pz.transpose(0, 2, 1), ((0, 0), (0, 0), (0, Zp - Zf)))
     out = pl.pallas_call(
-        _make_fwd_banded_kernel(bf16),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(n_tiles, A),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec((1, 2, TILE_B), lambda t, a, u0: (a, 0, t)),
-            ],
-            out_specs=pl.BlockSpec((Zp, TILE_B), lambda t, a, u0: (0, t)),
-            scratch_shapes=[
-                pltpu.VMEM((Zp, BANDW),
-                           jnp.bfloat16 if bf16 else jnp.float32),
-                pltpu.SemaphoreType.DMA,
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((Zp, n_tiles * TILE_B),
-                                       jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_tiles * A * Zp * BANDW * TILE_B,
-            bytes_accessed=n_tiles * A *
-            (Zp * BANDW * (2 if bf16 else 4) + 2 * TILE_B * 4)
-            + Zp * n_tiles * TILE_B * 4,
-            transcendentals=0),
-    )(U0, Pp, F)
-    return block_unpermute(out[:Zf], Y, X).reshape(Zf, YX)
+        _fwd_kernel,
+        grid=(n // TILE, Zp // bz),
+        in_specs=[
+            pl.BlockSpec((A, U, Zp), lambda t, z: (0, 0, 0)),
+            pl.BlockSpec((A, TILE), lambda t, z: (0, t)),
+            pl.BlockSpec((A, TILE), lambda t, z: (0, t)),
+            pl.BlockSpec((A, TILE), lambda t, z: (0, t)),
+        ],
+        out_specs=pl.BlockSpec((TILE, bz), lambda t, z: (t, z)),
+        out_shape=jax.ShapeDtypeStruct((n, Zp), jnp.float32),
+        compiler_params=pltr.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="backproject_fwd",
+    )(PzT, geo.i0, geo.w0, geo.w1)
+    return _raster(out[:, :Zf].T, geo.Y, geo.X)
 
 
-def _make_bwd_banded_kernel(bf16):
-    def kernel(u0_ref, dL_ref, F_ref, out_ref):
-        a = pl.program_id(0)
-        t = pl.program_id(1)
-
-        @pl.when(t == 0)
-        def _():
-            out_ref[:] = jnp.zeros_like(out_ref)
-
-        u0 = pl.multiple_of(u0_ref[a, t], 128)
-        T = F_ref.shape[2]
-        Wv = F_ref[0, 0, :].reshape(T, 1)
-        uv = F_ref[0, 1, :].reshape(T, 1) - u0.astype(jnp.float32)
-        cols = jax.lax.broadcasted_iota(jnp.int32, (T, BANDW), 1)
-        Bt = Wv * jnp.maximum(0.0, 1.0 - jnp.abs(uv - cols.astype(
-            jnp.float32)))
-        if bf16:
-            Bt = Bt.astype(jnp.bfloat16)
-        acc = jnp.dot(dL_ref[:], Bt, preferred_element_type=jnp.float32)
-        out_ref[:, pl.ds(u0, BANDW)] += acc
-
-    return kernel
-
-
-def _bwd_banded(dL, W, Umap, U, bf16=False):
-    A, Y, X = W.shape
+def _bwd_triton(dL, geo, U, interpret=False):
     Zf = dL.shape[0]
-    YX = Y * X
-    Upad = _round_up(U, 128)
-    Zp = _round_up(Zf, 16 if bf16 else 8)
-    F, U0 = _pack_fields_banded(W, Umap, U)
-    n_tiles = F.shape[2] // TILE_B
-    dLb = block_permute(dL.reshape(Zf, Y, X), Y, X).reshape(Zf, YX)
-    dLb = jnp.pad(dLb, ((0, Zp - Zf), (0, 0)))
-    if bf16:
-        dLb = dLb.astype(jnp.bfloat16)
-
+    A, K, Up = geo.cells.shape
+    bz = _bz(Zf)
+    Zp = _round_up(Zf, bz)
+    dLt = _tile_major(dL.reshape(Zf, geo.Y, geo.X)).T
+    dLt = jnp.pad(dLt, ((0, 0), (0, Zp - Zf)))
     out = pl.pallas_call(
-        _make_bwd_banded_kernel(bf16),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(A, n_tiles),
-            in_specs=[
-                pl.BlockSpec((Zp, TILE_B), lambda a, t, u0: (0, t)),
-                pl.BlockSpec((1, 2, TILE_B), lambda a, t, u0: (a, 0, t)),
-            ],
-            out_specs=pl.BlockSpec((Zp, Upad), lambda a, t, u0: (a, 0)),
-        ),
-        out_shape=jax.ShapeDtypeStruct((A * Zp, Upad), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n_tiles * A * Zp * BANDW * TILE_B,
-            bytes_accessed=A * n_tiles *
-            (Zp * TILE_B * (2 if bf16 else 4) + 2 * TILE_B * 4)
-            + A * Zp * Upad * 4,
-            transcendentals=0),
-    )(U0, dLb, F)
-    return out.reshape(A, Zp, Upad)[:, :Zf, :U]
+        _bwd_kernel,
+        grid=(A, Up // BU, Zp // bz),
+        in_specs=[
+            pl.BlockSpec(geo.kmax.shape, lambda a, u, z: (0, 0)),
+            pl.BlockSpec((None, K, BU), lambda a, u, z: (a, 0, u)),
+            pl.BlockSpec((None, K, BU), lambda a, u, z: (a, 0, u)),
+            pl.BlockSpec(dLt.shape, lambda a, u, z: (0, 0)),
+        ],
+        out_specs=pl.BlockSpec((None, BU, bz), lambda a, u, z: (a, u, z)),
+        out_shape=jax.ShapeDtypeStruct((A, Up, Zp), jnp.float32),
+        compiler_params=pltr.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="backproject_bwd",
+    )(geo.kmax, geo.cells, geo.cw, dLt)
+    return out[:, :U, :Zf].transpose(0, 2, 1)
 
 
 # --------------------------------------------------------------------------
-# differentiable entry
+# dispatch + differentiable entry
+
+
+def prepare(impl, W, Umap, U):
+    """(A, Y, X) transport fields -> the operands `impl` reads; every
+    leaf leads with the angle axis, so the pytree shards over angles."""
+    _check(impl)
+    if impl == "xla":
+        return {"W": W, "Umap": Umap}
+    return _tile_geometry(W, Umap, U)
+
+
+def forward(impl, Pz, geo):
+    """dose(Zf, Y*X) = sum_a Pz_a @ B_a."""
+    _check(impl)
+    if impl == "xla":
+        return _fwd_xla(Pz, geo["W"], geo["Umap"])
+    return _fwd_triton(Pz, geo)
+
+
+def adjoint(impl, dL, geo, U):
+    """Pz_bar(A, Zf, U) = dL @ B_a^T."""
+    _check(impl)
+    if impl == "xla":
+        return _bwd_xla(dL, geo["W"], geo["Umap"], U)
+    return _bwd_triton(dL, geo, U)
+
+
+def zero_cotangent(tree):
+    """Zero cotangents for a pytree of arrays (float0 for int leaves)."""
+    return jax.tree.map(_zero_ct, tree)
 
 
 @partial(jax.custom_vjp, nondiff_argnums=(0,))
-def backproject(impl, Pz, W, Umap):
-    """dose(Zf, Y*X) = sum_a Pz_a @ B_a(W_a, u_map_a).
-
-    impl: 'xla' | 'pallas' | 'pallas_bf16' | 'pallas_band' |
-    'pallas_band_bf16'. bf16 variants store the streamed operand (Pz /
-    dL) as bfloat16 in HBM and accumulate in f32; band variants require
-    `banded_eligible` + `band_span_ok` (checked by the caller)."""
-    if impl == "pallas":
-        return _fwd_pallas(Pz, W, Umap)
-    if impl == "pallas_bf16":
-        return _fwd_pallas(Pz, W, Umap, bf16=True)
-    if impl == "pallas_band":
-        return _fwd_banded(Pz, W, Umap)
-    if impl == "pallas_band_bf16":
-        return _fwd_banded(Pz, W, Umap, bf16=True)
-    return _fwd_xla(Pz, W, Umap)
+def backproject(impl, Pz, geo):
+    """Differentiable forward(impl, Pz, geo) w.r.t. the pattern stack."""
+    return forward(impl, Pz, geo)
 
 
-def _bp_fwd(impl, Pz, W, Umap):
-    return backproject(impl, Pz, W, Umap), (W, Umap, Pz.shape[2])
+def _bp_fwd(impl, Pz, geo):
+    return forward(impl, Pz, geo), (geo, Pz.shape[2])
 
 
 def _bp_bwd(impl, res, dL):
-    W, Umap, U = res
-    if impl == "pallas":
-        Pbar = _bwd_pallas(dL, W, Umap, U)
-    elif impl == "pallas_bf16":
-        Pbar = _bwd_pallas(dL, W, Umap, U, bf16=True)
-    elif impl == "pallas_band":
-        Pbar = _bwd_banded(dL, W, Umap, U)
-    elif impl == "pallas_band_bf16":
-        Pbar = _bwd_banded(dL, W, Umap, U, bf16=True)
-    else:
-        Pbar = _bwd_xla(dL, W, Umap, U)
-    return (Pbar, jnp.zeros_like(W), jnp.zeros_like(Umap))
+    geo, U = res
+    return adjoint(impl, dL, geo, U), zero_cotangent(geo)
 
 
 backproject.defvjp(_bp_fwd, _bp_bwd)
-
-
-def get_impls(impl):
-    """(fwd(Pz, W, Umap), bwd(dL, W, Umap, U)) pair for an impl name."""
-    if impl == "pallas":
-        return _fwd_pallas, _bwd_pallas
-    if impl == "pallas_bf16":
-        return (partial(_fwd_pallas, bf16=True),
-                lambda dL, W, Um, U: _bwd_pallas(dL, W, Um, U, bf16=True))
-    if impl == "pallas_band":
-        return _fwd_banded, _bwd_banded
-    if impl == "pallas_band_bf16":
-        return (partial(_fwd_banded, bf16=True),
-                lambda dL, W, Um, U: _bwd_banded(dL, W, Um, U, bf16=True))
-    return _fwd_xla, _bwd_xla

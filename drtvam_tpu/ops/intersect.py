@@ -6,8 +6,8 @@ TVAM scenes use (reference call site: volume.py:191 `scene.ray_intersect`):
   * axis-aligned box (square vials — geometry.py:195-219)
   * triangle meshes (targets / occlusions / custom vials), brute-force
     over a flat triangle bank in chunks; TVAM meshes are tiny (<= ~1k
-    triangles) so a BVH would cost more in traversal divergence on TPU
-    than the dense Moeller-Trumbore sweep it saves.
+    triangles) so a BVH would cost more in traversal divergence than
+    the dense Moeller-Trumbore sweep it saves.
 
 All functions are batched over rays, branchless, and return t = +inf on
 miss. Normals are geometric and outward-oriented (not flipped toward the

@@ -1,6 +1,6 @@
 """The wavefront volumetric path tracer: forward dose + adjoint.
 
-This is the TPU-native replacement for the reference's Dr.Jit megakernel
+This is the JAX replacement for the reference's Dr.Jit megakernel
 (integrators/volume.py:136-282 `sample`) and its per-segment dose
 estimators (sensor.py: DDA :306-440, ratio :205-295, delta :121-191).
 Instead of a recorded per-lane `while` megakernel, the path loop is a
@@ -104,7 +104,7 @@ class MarchStatic:
     # pdfs stay detached exactly like the reference. Off by default --
     # it adds VPU work to every adjoint deposit.
     medium_grads: bool = False
-    # Scattered-residual mode (the TPU hybrid engine, ops/hybrid.py):
+    # Scattered-residual mode (the hybrid engine, ops/hybrid.py):
     # trace the identical analog paths but suppress every deposit made
     # with n_scat == 0. The expected value of the suppressed deposits
     # is the deterministic unscattered transport, which the ballistic
@@ -349,9 +349,9 @@ def _first_scatter_from_chords(static: MarchStatic, arr, o, aidx,
     z = o[:, 2:3]
     zeros = jnp.zeros_like(z)
     # ONE packed-record gather instead of four: separate per-field
-    # gathers each pay the full random-access cost (TPU profile: 4 of
-    # the top-10 fusions). The pack is loop-invariant, so XLA hoists it
-    # out of the chunk loop when the engine didn't prepack on host.
+    # gathers each pay the full random-access cost. The pack is
+    # loop-invariant, so XLA hoists it out of the chunk loop when the
+    # engine didn't prepack on host.
     if "chord_pack" in arr:
         rec = arr["chord_pack"]
     else:
@@ -385,8 +385,7 @@ def _sample_first_scatter(static: MarchStatic, arr, sg_o, sg_d, sg_L,
     u1, ctr = sampler.next_1d(lane, ctr)
     pick1 = (u1 * M > mass[:, 0]) & (sg_L[:, 1] > 0.0)
     # K == 2: a where-select, NOT take_along_axis — the latter lowers
-    # to a per-lane gather (5 of them showed up in the TPU profile at
-    # ~15 ms per 1M-lane chunk each); the select is a fused VPU op
+    # to a per-lane gather; the select fuses into its neighbours
     take = lambda a: jnp.where(
         pick1[:, None] if a.ndim == 3 else pick1, a[:, 1], a[:, 0])
     o_k, d_k = take(sg_o), take(sg_d)
@@ -577,9 +576,8 @@ def _deposit(primal, acc, g, dL, flat, val, mask):
 
 
 # Staged-deposit flush width: DDA/ratio steps buffer (idx, val) rows and
-# flush ONE batched scatter-add / gather per K steps. Per-step scatters
-# serialize on TPU (~0.65 ms each at 1M lanes); a 32-step flush moves the
-# same updates at full scatter throughput (~10 G-upd/s measured on v5e).
+# flush ONE batched scatter-add / gather per K steps instead of one
+# scatter per step.
 DDA_FLUSH = 32
 
 

@@ -5,7 +5,7 @@ custom vials) inside its bounce loop. The brute-force bank sweep
 (ops/intersect.ray_triangles) touches every triangle per segment —
 fine for the reference's tiny test meshes, quadratic death for
 Benchy-class geometry (the reference leans on Embree/OptiX BVHs here,
-README.md:97). This module is the TPU-native accelerator:
+README.md:97). This module is the JAX accelerator structure:
 
   * `build_tri_grid` (host, numpy): bins triangles into a uniform 3D
     grid sized to ~2 cells/triangle, stored CSR (cell_start, tri_ids).
@@ -13,7 +13,7 @@ README.md:97). This module is the TPU-native accelerator:
   * `ray_triangles_grid` (device, lax): vectorized 3D-DDA cell walk;
     each step gathers only the current cell's triangle list and tests
     it in 8-wide Moeller-Trumbore chunks. No per-lane stacks, no
-    recursion — branchless masked state machines, the TPU-friendly
+    recursion — branchless masked state machines, the data-parallel
     replacement for BVH traversal: cells crossed x tris/cell gathers
     instead of T tests.
 

@@ -1,6 +1,6 @@
 """Public render entry points: chunked forward dose + custom_vjp adjoint.
 
-This is the TPU-native replacement for `mi.render` dispatching to the
+This is the JAX replacement for `mi.render` dispatching to the
 reference's VolumeIntegrator.render / render_backward
 (integrators/volume.py:18-134) and the Dr.Jit AD tape:
 
@@ -38,17 +38,16 @@ from ..core.rng import Sampler
 from ..models.projector import sample_rays, ray_weight
 
 # Default lanes per pass: sized so the live wavefront state (~30 f32s
-# per lane) stays well under HBM alongside the dose grid.
-DEFAULT_CHUNK_TPU = 1 << 20
+# per lane) stays well under device memory alongside the dose grid.
+DEFAULT_CHUNK_ACCEL = 1 << 20
 DEFAULT_CHUNK_CPU = 1 << 16
 
 
 def default_chunk():
-    try:
-        platform = jax.devices()[0].platform
-    except Exception:
-        platform = "cpu"
-    return DEFAULT_CHUNK_CPU if platform == "cpu" else DEFAULT_CHUNK_TPU
+    """Lanes per pass for the platform JAX runs on."""
+    if jax.devices()[0].platform == "cpu":
+        return DEFAULT_CHUNK_CPU
+    return DEFAULT_CHUNK_ACCEL
 
 
 def _chunking(n_lanes, chunk, spp=1):

@@ -10,7 +10,7 @@ collect all ray/mesh intersections along +z, and parity intervals give
 exact inside spans per column. Binary occupancy tests the voxel-center
 parity (identical semantics for watertight meshes, deterministic);
 fractional volumes integrate the covered z-length exactly and supersample
-in xy — a deterministic, TPU-friendly replacement for the reference's MC
+in xy — a deterministic, branch-free replacement for the reference's MC
 estimate with far fewer ray casts.
 """
 from __future__ import annotations

@@ -3,9 +3,9 @@
 The host-side `LinearLBFGS` (opt/lbfgs.py) mirrors the reference's
 control flow (lbfgs.py:146-275) but syncs scalars to the host for the
 history update and every Armijo trial — up to ~25 device round-trips
-per iteration. On a TPU behind a network transport each blocking call
-costs tens of milliseconds, which dominates the optimization loop when
-the renders themselves are fast matmuls (the ballistic engine).
+per iteration. Each blocking call stalls the device, which dominates
+the optimization loop when the renders themselves are fast (the
+ballistic engine).
 
 `fused_linear_lbfgs` runs the identical algorithm entirely on device:
 fixed-size circular history buffers, the two-loop recursion as an
@@ -28,6 +28,11 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+
+def _dot(a, b):
+    """f32 inner product at full precision (no TF32 rounding)."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _insert_row(M, row, slot, accept):
@@ -54,7 +59,7 @@ def lbfgs_direction(g, S, Yh, ys, head, nvalid, m):
         ok = k < nvalid
         sk = _row(S, slot).astype(jnp.float32)
         yk = _row(Yh, slot).astype(jnp.float32)
-        a = jnp.dot(sk, q) / ys[slot]
+        a = _dot(sk, q) / ys[slot]
         a = jnp.where(ok, a, 0.0)
         q = jnp.where(ok, q - a * yk, q)
         alphas = alphas.at[k].set(a)
@@ -62,7 +67,7 @@ def lbfgs_direction(g, S, Yh, ys, head, nvalid, m):
     y_new = _row(Yh, newest).astype(jnp.float32)
     gamma = jnp.where(
         nvalid > 0,
-        ys[newest] / jnp.maximum(jnp.dot(y_new, y_new), 1e-30),
+        ys[newest] / jnp.maximum(_dot(y_new, y_new), 1e-30),
         1.0)
     z = gamma * q
     for k in range(m - 1, -1, -1):
@@ -70,7 +75,7 @@ def lbfgs_direction(g, S, Yh, ys, head, nvalid, m):
         ok = k < nvalid
         sk = _row(S, slot).astype(jnp.float32)
         yk = _row(Yh, slot).astype(jnp.float32)
-        b = jnp.dot(yk, z) / ys[slot]
+        b = _dot(yk, z) / ys[slot]
         z = jnp.where(ok, z + (alphas[k] - b) * sk, z)
     return -z
 
@@ -117,9 +122,9 @@ def fused_linear_lbfgs(value_grad_fn, dir_fn, cand_fn, p0, n_steps,
         n_steps: static iteration count.
         clamp: clamp patterns >= 0 after each step (optimize.py:320).
         history_dtype: storage dtype of the S/Yh circular buffers —
-            bfloat16 halves the 2*(m, n) history HBM footprint (2.6 GB
-            at n = 64M); curvature scalars and two-loop dot products
-            stay f32 (see DeviceLinearLBFGS.__init__).
+            bfloat16 halves the 2*(m, n) history footprint; curvature
+            scalars and two-loop dot products stay f32 (see
+            DeviceLinearLBFGS.__init__).
 
     Returns (p, loss_hist, n_done): final patterns, per-step losses
     (entries past an early break repeat the converged loss' step index
@@ -167,7 +172,7 @@ def fused_linear_lbfgs(value_grad_fn, dir_fn, cand_fn, p0, n_steps,
         # -- history update (lbfgs.py:176-196 + curvature safeguard) --
         sv = p - s["p_old"]
         yv = g - s["g_old"]
-        ysv = jnp.dot(yv, sv)
+        ysv = _dot(yv, sv)
         norm = jnp.linalg.norm(yv) * jnp.linalg.norm(sv)
         accept = (s["i"] > 0) & jnp.isfinite(ysv) & \
             (ysv > 1e-10 * jnp.maximum(norm, 1e-30))
@@ -181,7 +186,7 @@ def fused_linear_lbfgs(value_grad_fn, dir_fn, cand_fn, p0, n_steps,
 
         z = lbfgs_direction(g, S, Yh, ys, head, nvalid, m)
         dvol = dir_fn(z, s["i"]) if pass_iter else dir_fn(z)
-        g_dot_z = jnp.dot(g, z)
+        g_dot_z = _dot(g, z)
         alpha = armijo_search(cand_fn, vol, dvol, z, loss, g_dot_z,
                               search_it, c1)
         p_new = p + alpha * z
@@ -221,9 +226,8 @@ class DeviceLinearLBFGS:
         closures — closure-captured device arrays are baked into the
         compiled executable as constants.
 
-        history_dtype: storage dtype of the S/Yh circular buffers. At
-        n = 64M patterns the f32 history is 2*(m x n x 4B) = 2.6 GB;
-        bfloat16 halves that. The curvature scalars (ys, gamma) are
+        history_dtype: storage dtype of the S/Yh circular buffers
+        (2*m*n entries); bfloat16 halves their footprint. The curvature scalars (ys, gamma) are
         always computed from the f32 step/grad differences BEFORE
         quantization, and the two-loop dot products accumulate in f32,
         so only the stored direction vectors lose precision — a
@@ -242,18 +246,12 @@ class DeviceLinearLBFGS:
         integrator change) keeping the accumulated history state."""
         self._dir_fn = dir_fn
         self._cand_fn = cand_fn
-        # THREE dispatches per step, not one: fusing the direction
-        # RENDER into the same program as the history update made XLA
-        # plan the render's working set alongside the (m, n) history
-        # buffers and per-n temporaries — at the 256^3 surface-aware
-        # benchmark scale that single program planned 24.3 GB of HBM
-        # (the chip has 15.75) and failed AT COMPILE. Split, each
-        # program's peak fits; the 2 extra dispatch round-trips cost
-        # ~tens of ms against a ~30 s iteration.
-        # the state pytree (S/Yh history, p_old/g_old — up to ~3 GB at
-        # 64M patterns) is donated: its buffers are dead the moment the
-        # step returns the new state, and donation lets XLA update the
-        # circular history slot in place instead of copying 2.6 GB
+        # THREE dispatches per step, not one: fused with the history
+        # update, the direction RENDER's working set is planned
+        # alongside the (m, n) history buffers and per-n temporaries,
+        # which raises the program's peak memory. The state pytree is
+        # donated: its buffers are dead the moment the step returns the
+        # new state, so the circular history slot updates in place.
         self._pre_j = jax.jit(self._pre_impl, donate_argnums=(0,))
         self._dir_j = jax.jit(lambda z, step_args:
                               self._dir_fn(z, *step_args))
@@ -277,7 +275,7 @@ class DeviceLinearLBFGS:
         m = self.m
         sv = p - st["p_old"]
         yv = g - st["g_old"]
-        ysv = jnp.dot(yv, sv)
+        ysv = _dot(yv, sv)
         norm = jnp.linalg.norm(yv) * jnp.linalg.norm(sv)
         accept = (st["t"] > 0) & jnp.isfinite(ysv) & \
             (ysv > 1e-10 * jnp.maximum(norm, 1e-30))
@@ -291,7 +289,7 @@ class DeviceLinearLBFGS:
         nvalid = jnp.where(accept, jnp.minimum(nvalid + 1, m), nvalid)
 
         z = lbfgs_direction(g, S, Yh, ys, head, nvalid, m)
-        g_dot_z = jnp.dot(g, z)
+        g_dot_z = _dot(g, z)
         new_state = dict(t=st["t"] + 1, p_old=p, g_old=g, S=S, Yh=Yh,
                          ys=ys, head=head, nvalid=nvalid)
         return z, g_dot_z, new_state

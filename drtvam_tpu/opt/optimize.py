@@ -24,7 +24,6 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
-from tqdm import trange
 
 from ..models.scene import Scene
 from ..ops.render import (render, render_radon, render_corner, _adjoint,
@@ -45,7 +44,7 @@ def _make_step_fns(static, arr, inv_vol, spp, spp_grad, chunk, loss_obj,
     """Jitted primal / adjoint / direction-render / line-search closures
     for one integrator configuration.
 
-    engine: 'auto' picks the ballistic matmul fast path when the scene
+    engine: 'auto' picks the ballistic fast path when the scene
     qualifies (collimated + analytic vial + pure absorption, see
     ops/transport2d.ballistic_eligible), the hybrid engine
     (analytic unscattered transport + MC scattered residual,
@@ -64,10 +63,11 @@ def _make_step_fns(static, arr, inv_vol, spp, spp_grad, chunk, loss_obj,
     # Large arrays (transport fields, scene arrays, target volume,
     # surface-aware inv_vol) are passed as jit ARGUMENTS, not captured
     # as closure constants: constants are baked into the compiled
-    # executable, which bloats it by O(angles x film^2) and can exceed
-    # payload limits of remote-compile backends.
+    # executable, which bloats it by O(angles x film^2).
     if use_ballistic:
         eng = BallisticEngine(static, arr, inside_mask=inside_mask)
+        print(f"Engine: ballistic (backprojection {eng.impl}, transport "
+              f"{eng.transport_builder})")
         ep = eng.params()
 
         @jax.jit
@@ -102,6 +102,9 @@ def _make_step_fns(static, arr, inv_vol, spp, spp_grad, chunk, loss_obj,
         eng = ScatteringEngine(static, arr, spp=spp, spp_grad=spp_grad,
                                chunk=chunk, inside_mask=inside_mask,
                                estimator=hybrid_estimator)
+        print(f"Engine: hybrid (backprojection {eng.ball.impl}, transport "
+              f"{eng.ball.transport_builder}; residual "
+              f"{eng.static_s.sensor.estimator})")
         ep = eng.params()
 
         @jax.jit
@@ -134,6 +137,8 @@ def _make_step_fns(static, arr, inv_vol, spp, spp_grad, chunk, loss_obj,
 
         step_args = lambda seed: (seed, ep, inv_vol, target)
     else:
+        print(f"Engine: wavefront ({static.sensor.estimator})")
+
         @partial(jax.jit, static_argnames=())
         def primal_j(data, seed, arr_, iv, tgt):
             vol = render(static, arr_, data, iv, seed, spp, spp_grad,
@@ -381,7 +386,7 @@ def optimize(config, patterns_fwd=None, resolve_path=None):
     def dump_patterns(data):
         imgs = np.asarray(scene.projector.patterns(data))
         print("Writing per-pattern EXR images...")
-        for i in trange(imgs.shape[0]):
+        for i in range(imgs.shape[0]):
             save_img(imgs[i], os.path.join(output, "patterns",
                                            f"{i:04d}.exr"))
         np.savez_compressed(os.path.join(output, "patterns.npz"),
@@ -540,7 +545,7 @@ def optimize(config, patterns_fwd=None, resolve_path=None):
                     opt.rebind(fns["dir_fn"], fns["cand_fn"])
             print(f"Resuming from checkpoint at step {start_step}.")
 
-        for i in trange(start_step, n_steps):
+        for i in range(start_step, n_steps):
             if progressive and i == 5:
                 fns = build_fns(max_depth)
                 if opt is not None:
@@ -589,6 +594,8 @@ def optimize(config, patterns_fwd=None, resolve_path=None):
                 med_params["al"] = jnp.clip(med_params["al"], 0.0, 0.999)
                 apply_medium(fns)
             timing_hist[i, 1] = time_mod.perf_counter() - t1
+            print(f"step {i + 1}/{n_steps}: loss {loss_hist[i]:.6e} "
+                  f"({timing_hist[i].sum():.3f} s)", flush=True)
 
             if checkpoint_every and ((i + 1) % checkpoint_every == 0
                                      or i == n_steps - 1):
@@ -640,9 +647,13 @@ def optimize(config, patterns_fwd=None, resolve_path=None):
 
     efficiency = float(np.sum(normalized / normalized.size))
     print(f"Pattern energy efficiency: {efficiency:.4f}")
-    save_histogram(vol_final, hist_target,
-                   os.path.join(output, "histogram.png"),
-                   efficiency, array_max)
+    best_iou, best_thr = save_histogram(
+        vol_final, hist_target, os.path.join(output, "histogram.png"),
+        efficiency, array_max)
+    with open(os.path.join(output, "metrics.json"), "w") as f:
+        json.dump({"best_iou": best_iou, "best_threshold": best_thr,
+                   "normalized_threshold": best_thr / array_max,
+                   "pattern_efficiency": efficiency}, f, indent=2)
     return vol_final
 
 
@@ -687,7 +698,7 @@ def main(argv=None):
                         help="Override/Add a parameter in the configuration "
                         "dictionary. Nested keys are separated by dots.")
     parser.add_argument("--backend", type=str, default=None,
-                        choices=["tpu", "cpu", "gpu"],
+                        choices=["cpu", "gpu"],
                         help="Select the JAX platform for the optimization.")
     parser.add_argument("--forward_mode", action="store_true",
                         help="Just project the patterns without optimization."
@@ -700,6 +711,11 @@ def main(argv=None):
 
     if args.backend is not None:
         jax.config.update("jax_platforms", args.backend)
+    from ..utils.jax_cache import enable_compile_cache
+    enable_compile_cache()
+    devs = jax.devices()
+    print(f"JAX devices: {len(devs)} x {devs[0].device_kind} "
+          f"({devs[0].platform})")
 
     with open(args.config, "r") as f:
         config = json.load(f)

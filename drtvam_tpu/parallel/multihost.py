@@ -1,11 +1,11 @@
 """Multi-host launch helpers.
 
 The reference is strictly single-device (SURVEY.md §2.4); scale-out is
-new TPU-first design. On a multi-host TPU slice each host runs the same
+new design. On a multi-host cluster each host runs the same
 program; `init_multihost()` wires up jax.distributed so `jax.devices()`
 is the global device list, and `global_mesh()` builds the 1-D ray/angle
 mesh spanning it. Dose grids and pattern gradients are psum-reduced
-over ICI by parallel.shard; nothing else is host-aware.
+by parallel.shard; nothing else is host-aware.
 
 Typical launch (one process per host):
 
@@ -27,9 +27,10 @@ from .shard import AXIS, make_mesh
 def init_multihost(coordinator_address=None, num_processes=None,
                    process_id=None):
     """Initialize jax.distributed from explicit args or the standard
-    environment (JAX_COORDINATOR_ADDRESS / cloud TPU metadata). A
-    single-process run (no coordinator configured) is a no-op, so the
-    same entry point works from laptops to pods."""
+    environment (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID). A single-process run (no coordinator configured)
+    is a no-op, so the same entry point works from laptops to
+    clusters."""
     if num_processes is None:
         num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "0")) or None
     if coordinator_address is None:

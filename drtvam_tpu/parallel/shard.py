@@ -1,13 +1,13 @@
 """Multi-chip scale-out: ray-space sharding over a device mesh.
 
 The reference has NO distributed execution (single Dr.Jit wavefront on
-one GPU, SURVEY.md §2.4); this layer is new, TPU-first design:
+one GPU, SURVEY.md §2.4); this layer is new design:
 
   * the (active-pixel x spp) ray wavefront is block-sharded over a 1-D
     `Mesh` axis 'rays' — angles/pixels land on chips in contiguous
     blocks, so each chip's pattern-gradient segment is nearly disjoint;
   * each chip ray-marches its lanes into a CHIP-LOCAL replica of the
-    dose accumulator (atomics-free), then one `psum` over ICI reduces
+    dose accumulator, then one `psum` over the interconnect reduces
     dose grids (forward) / pattern gradients (backward);
   * the host-side API mirrors ops.render: `make_sharded_render(mesh)`
     returns a drop-in `render_raw`-shaped callable with the same
@@ -149,39 +149,43 @@ def render_sharded(mesh, static, arr, active_data, inv_vol, seed=0, spp=1,
 # ballistic engine sharding: angles -> chips
 
 
-def make_sharded_backproject(mesh: Mesh, impl: str):
-    """Angle-sharded ballistic backprojection. The per-angle transport
-    fields and pattern stack are block-sharded over the mesh axis; each
-    chip backprojects its own angle block into a local dose grid and
-    ONE psum reduces doses over ICI. The adjoint needs NO collective:
-    each angle's pattern gradient depends only on the (replicated) dose
-    cotangent, so the result stays angle-sharded."""
-    from ..ops.backproject import get_impls
-    fwd_impl, bwd_impl = get_impls(impl)
+def _sharded_adjoint(mesh, impl, U):
+    """Angle-sharded adjoint: each device's pattern gradient depends only
+    on the (replicated) dose cotangent, so it needs no collective and
+    the result stays angle-sharded."""
+    from ..ops.backproject import adjoint
 
-    @partial(jax.custom_vjp, nondiff_argnums=())
-    def bp(Pz, W, Umap):
-        def local(Pz, W, Umap):
-            return jax.lax.psum(fwd_impl(Pz, W, Umap), AXIS)
+    def run(dL, geo):
+        return jax.shard_map(lambda g, d: adjoint(impl, d, g, U),
+                             mesh=mesh, in_specs=(P(AXIS), P()),
+                             out_specs=P(AXIS), check_vma=False)(geo, dL)
+
+    return run
+
+
+def make_sharded_backproject(mesh: Mesh, impl: str):
+    """Angle-sharded ballistic backprojection. The per-angle operands
+    (`ops.backproject.prepare`) and the pattern stack are block-sharded
+    over the mesh axis; each device backprojects its own angle block
+    into a local dose grid and ONE psum reduces the doses."""
+    from ..ops.backproject import forward, zero_cotangent
+
+    @jax.custom_vjp
+    def bp(Pz, geo):
+        def local(Pz, geo):
+            return jax.lax.psum(forward(impl, Pz, geo), AXIS)
 
         return jax.shard_map(local, mesh=mesh,
-                             in_specs=(P(AXIS), P(AXIS), P(AXIS)),
-                             out_specs=P(), check_vma=False)(Pz, W, Umap)
+                             in_specs=(P(AXIS), P(AXIS)),
+                             out_specs=P(), check_vma=False)(Pz, geo)
 
-    def _fwd(Pz, W, Umap):
-        return bp(Pz, W, Umap), (W, Umap, Pz.shape[2])
+    def _fwd(Pz, geo):
+        return bp(Pz, geo), (geo, Pz.shape[2])
 
     def _bwd(res, dL):
-        W, Umap, U = res
-
-        def local(W, Umap, dL):
-            return bwd_impl(dL, W, Umap, U)
-
-        Pbar = jax.shard_map(local, mesh=mesh,
-                             in_specs=(P(AXIS), P(AXIS), P()),
-                             out_specs=P(AXIS), check_vma=False)(
-                                 W, Umap, dL)
-        return (Pbar, jnp.zeros_like(W), jnp.zeros_like(Umap))
+        geo, U = res
+        return (_sharded_adjoint(mesh, impl, U)(dL, geo),
+                zero_cotangent(geo))
 
     bp.defvjp(_fwd, _bwd)
     return bp
@@ -189,32 +193,15 @@ def make_sharded_backproject(mesh: Mesh, impl: str):
 
 def shard_ballistic_engine(eng, mesh: Mesh):
     """Re-point a BallisticEngine's backprojection at an angle-sharded
-    mesh implementation and place its per-angle fields on the mesh.
+    mesh implementation and place its per-angle operands on the mesh.
     Angle count must divide evenly over the mesh (pad patterns upstream
     if needed). Returns the same engine, mutated."""
     n_dev = int(np.prod([mesh.shape[a] for a in mesh.axis_names]))
-    A = eng.W.shape[0]
+    A = eng.shape_dense[0]
     assert A % n_dev == 0, \
         f"{A} angles do not divide over {n_dev} devices"
     from jax.sharding import NamedSharding
-    sh = NamedSharding(mesh, P(AXIS))
-    eng.W = jax.device_put(eng.W, sh)
-    eng.Umap = jax.device_put(eng.Umap, sh)
+    eng.geo = jax.device_put(eng.geo, NamedSharding(mesh, P(AXIS)))
     eng._sharded_bp = make_sharded_backproject(mesh, eng.impl)
-
-    from ..ops.backproject import get_impls
-    bwd_impl = get_impls(eng.impl)[1]
-    U = eng.shape_dense[2]
-    W, Umap = eng.W, eng.Umap
-
-    def sharded_bwd(dL):
-        def local(W_, U_, dL_):
-            return bwd_impl(dL_, W_, U_, U)
-
-        return jax.shard_map(local, mesh=mesh,
-                             in_specs=(P(AXIS), P(AXIS), P()),
-                             out_specs=P(AXIS), check_vma=False)(
-                                 W, Umap, dL)
-
-    eng._sharded_bwd = sharded_bwd
+    eng._sharded_bwd = _sharded_adjoint(mesh, eng.impl, eng.shape_dense[2])
     return eng

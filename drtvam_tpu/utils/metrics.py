@@ -29,20 +29,14 @@ iou_loss = iou
 
 def save_histogram(vol, target, filename, efficiency, max_pattern_intensity,
                    n_thresholds=300, verbose=True):
-    """Dose histogram PNG + best-IoU threshold sweep over [0, 1.3]
-    (reference utils.py:48-81). Returns (best_iou, best_threshold)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    """Best-IoU threshold sweep over [0, 1.3] plus the dose histogram
+    PNG (reference utils.py:48-81). The sweep is printed and returned
+    always; the PNG is drawn only where matplotlib imports. Returns
+    (best_iou, best_threshold)."""
     vol = np.asarray(vol)
     target = np.asarray(target)
     obj_mask = target.ravel() > 0.0
     voxels = vol.ravel()
-
-    plt.figure(figsize=(10, 5))
-    plt.hist(voxels[obj_mask], bins=500, label="Object", alpha=0.55)
-    plt.hist(voxels[~obj_mask], bins=500, label="Empty", alpha=0.55)
 
     if verbose:
         print("Finding threshold for best IoU ...")
@@ -54,11 +48,23 @@ def save_histogram(vol, target, filename, efficiency, max_pattern_intensity,
     ious = inter / np.maximum(union, 1)
     best = int(np.argmax(ious))
     best_iou = float(ious[best])
+    best_threshold_normalized = thresholds[best] / max_pattern_intensity
     if verbose:
         print("Best IoU: {:.4f}".format(best_iou))
         print("Best threshold: {:4f}".format(thresholds[best]))
 
-    best_threshold_normalized = thresholds[best] / max_pattern_intensity
+    try:
+        import matplotlib
+    except ImportError:
+        if verbose:
+            print(f"matplotlib not installed: {filename} not drawn")
+        return best_iou, float(thresholds[best])
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.figure(figsize=(10, 5))
+    plt.hist(voxels[obj_mask], bins=500, label="Object", alpha=0.55)
+    plt.hist(voxels[~obj_mask], bins=500, label="Empty", alpha=0.55)
     plt.xlim([0, 1.2])
     plt.title("pattern energy efficiency = {:.4f}, IoU = {:.4f} at "
               "threshold = {:.3f}, normalized threshold = {:.3f}".format(

@@ -169,8 +169,8 @@ def test_steppable_matches_host_trajectory():
 
 
 def test_bf16_history_converges_like_f32():
-    """bfloat16 S/Yh storage (the 16 GB-HBM configuration used by
-    bench.py at 64M patterns) perturbs the quasi-Newton direction but
+    """bfloat16 S/Yh storage (the configuration bench.py uses at 64M
+    patterns) perturbs the quasi-Newton direction but
     must not change the convergence level: same final loss within 10%
     and monotone-ish descent."""
     render, loss_fn, p0, n_steps = _problem(seed=9, n_steps=12)

@@ -74,8 +74,8 @@ def agreement(cfg, vol, phantom):
     return np.mean(np.isclose(phantom, vol[:, :, :, 0] > thr)) * 100
 
 
-# ---- non-slow smoke gates (VERDICT r03 item 8): few-iteration runs of
-# the mesh/occlusion/culling families so the default suite exercises
+# ---- non-slow smoke gates: few-iteration runs of the
+# mesh/occlusion/culling families so the default suite exercises
 # their scene assembly, march paths, and culling renders end to end.
 # Bars are functional (calibrated loose for the tiny workload); the
 # slow tests above carry the quality bars.

@@ -1,13 +1,10 @@
 """REAL multi-process execution of the sharded renderer: two OS
 processes, jax.distributed with a localhost coordinator, gloo CPU
-collectives — the same wiring a multi-host TPU pod uses (one process
-per host), minus the ICI. Asserts the 2-process global-mesh render and
-pattern gradient match the single-process result (the global lane->RNG
-mapping makes the MC estimate mesh-shape-invariant).
-
-Through round 3, parallel/multihost.py had never run with
-num_processes >= 2 anywhere (VERDICT r03 item 4); this is that
-exercise.
+collectives — the same wiring a multi-host GPU cluster uses (one
+process per host), minus the interconnect. Asserts the 2-process
+global-mesh render and pattern gradient match the single-process result
+(the global lane->RNG mapping makes the MC estimate
+mesh-shape-invariant).
 """
 import os
 import socket
